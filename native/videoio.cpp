@@ -1,14 +1,16 @@
-// Native host-side video IO runtime for meshflow_tpu.
+// Native host-side video IO runtime for meshflow.
 //
 // The reference reaches all its codec work through OpenCV's C++ videoio
 // (cv2.VideoCapture / cv2.VideoWriter, /root/reference/meshflowstabilizer.py
-// :193-196, :1310-1320).  This is the equivalent native component for the
-// TPU framework: a libavformat/libavcodec/libswscale decoder with a
+// :193-196, :1310-1320).  This is the equivalent native component here:
+// a libavformat/libavcodec/libswscale decoder with a
 // background prefetch thread and ring buffer (decode overlaps device
 // compute), plus a matching encoder.  Exposed as a C ABI consumed from
-// Python via ctypes (meshflow_tpu/io/native.py).
+// Python via ctypes (meshflow/io/native.py).
 //
-// Build: scripts/build_native.sh  ->  native/libmeshflow_videoio.so
+// Built for the host at first use by meshflow/utils/native_build.py
+// (needs libav's headers and libraries); scripts/build_native.sh does the
+// same by one command.
 
 extern "C" {
 #include <libavcodec/avcodec.h>

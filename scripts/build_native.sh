@@ -1,10 +1,21 @@
 #!/bin/sh
-# Build the native video IO runtime -> native/libmeshflow_videoio.so
+# Build the native host libraries for this host into native/build/:
+# libmeshflow_warp (g++ only) and libmeshflow_videoio (needs libav).  The
+# package builds them the same way at first use; this is the one-command
+# form.  Exits non-zero if a library could not be built.
 set -e
 cd "$(dirname "$0")/.."
-g++ -O3 -march=native -funroll-loops -fno-math-errno -fPIC -shared \
-    -std=c++17 \
-    native/videoio.cpp native/warp.cpp \
-    -o native/libmeshflow_videoio.so \
-    -lavformat -lavcodec -lavutil -lswscale -lpthread
-echo "built native/libmeshflow_videoio.so"
+python3 - <<'PY'
+import sys
+
+from meshflow.utils import native_build
+
+failed = False
+for name in native_build.LIBRARIES:
+    if native_build.load(name) is None:
+        failed = True
+        print(f"{name}: not built: {native_build.error(name)}")
+    else:
+        print(f"{name}: {native_build.library_path(name)}")
+sys.exit(1 if failed else 0)
+PY

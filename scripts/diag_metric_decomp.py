@@ -29,16 +29,15 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_meshflow_tests")
 
 import cv2
 import numpy as np
 
-import meshflow_tpu  # noqa: F401  (precision config)
+import meshflow  # noqa: F401  (precision config)
 import jax
 import jax.numpy as jnp
 
-from meshflow_tpu.config import MeshFlowConfig
+from meshflow.config import MeshFlowConfig
 
 
 def decode_frame(path, index):
@@ -100,8 +99,8 @@ def cv2_tracker(early_frame, late_frame, config, stages=None):
 def our_tracker(early_frame, late_frame, config, seed, stages=None):
     """Our metric-path matching (XLA tracker on CPU): prepare_frames
     keypoints -> tile-pyramid LK -> per-subframe RANSAC -> MatchResult."""
-    from meshflow_tpu.motion.features import match_pair, track_pair
-    from meshflow_tpu.motion.pipeline import (
+    from meshflow.motion.features import match_pair, track_pair
+    from meshflow.motion.pipeline import (
         packed_tile_pyramids,
         prepare_frames,
         unpack_level,
@@ -145,7 +144,7 @@ def our_tracker(early_frame, late_frame, config, seed, stages=None):
 
 
 def our_fit(early, late):
-    from meshflow_tpu.kernels.homography import estimate_homography
+    from meshflow.kernels.homography import estimate_homography
 
     w = jnp.ones((early.shape[0],), jnp.float32)
     h = estimate_homography(jnp.asarray(early), jnp.asarray(late), w)

@@ -11,20 +11,26 @@ estimator (the min-over-frames distortion score is seed-sensitive on
 constant-high configs; the videos themselves are not).
 
 Usage:
-  python scripts/run_suite.py            # writes /tmp/suite-*.m4v
-  python scripts/golden_psnr.py [--out-dir /tmp]
+  python scripts/golden_psnr.py VIDEOS_DIR [--out-dir DIR]
+
+VIDEOS_DIR is the reference's videos/ directory: <clip>/<clip>.m4v inputs
+and <clip>/stabilized-method-<variant>.m4v golden outputs.  A configuration
+whose output DIR/suite-<clip>-<variant>.m4v (DIR defaults to the temporary
+directory) does not exist yet is stabilized first, so reruns compare only.
 """
 
 import json
 import os
 import sys
+import tempfile
 
 import numpy as np
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 OUT = os.path.join(REPO, "GOLDEN_PSNR.json")
+sys.path.insert(0, REPO)
 CLIPS = ["video-1", "video-2", "video-3", "video-5", "video-8", "video-9", "video-10"]
-VARIANTS = ["original", "flipped", "constant-high", "constant-low"]
+VARIANTS = {"original": 0, "flipped": 1, "constant-high": 2, "constant-low": 3}
 
 
 def read_video(path):
@@ -56,7 +62,8 @@ def psnr_series(ours_path, golden_path):
 
 
 def main():
-    out_dir = "/tmp"
+    videos = sys.argv[1]
+    out_dir = tempfile.gettempdir()
     if "--out-dir" in sys.argv:
         out_dir = sys.argv[sys.argv.index("--out-dir") + 1]
 
@@ -64,16 +71,22 @@ def main():
     if os.path.exists(OUT):
         with open(OUT) as f:
             results = json.load(f)
+    stabilizer = None
     for clip in CLIPS:
-        for variant in VARIANTS:
+        for variant, method in VARIANTS.items():
             key = f"{clip}/{variant}"
             ours = os.path.join(out_dir, f"suite-{clip}-{variant}.m4v")
-            golden = (
-                f"/root/reference/videos/{clip}/stabilized-method-{variant}.m4v"
-            )
+            golden = os.path.join(videos, clip, f"stabilized-method-{variant}.m4v")
             if not os.path.exists(ours):
-                print(f"{key}: missing {ours} (run scripts/run_suite.py)")
-                continue
+                if stabilizer is None:
+                    from meshflow import MeshFlowStabilizer
+                    from meshflow.utils.compile_cache import configure_compile_cache
+
+                    configure_compile_cache()
+                    stabilizer = MeshFlowStabilizer()
+                stabilizer.stabilize(
+                    os.path.join(videos, clip, f"{clip}.m4v"), ours, method
+                )
             series = psnr_series(ours, golden)
             entry = {
                 "mean_psnr_db": round(float(np.mean(series)), 2),

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from meshflow_tpu.kernels.eig3 import affine_eigen_ratio, affine_eigenvalue_magnitudes
+from meshflow.kernels.eig3 import affine_eigen_ratio, affine_eigenvalue_magnitudes
 
 
 def _oracle(h):

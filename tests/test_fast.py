@@ -4,10 +4,11 @@ import cv2
 import numpy as np
 import jax.numpy as jnp
 
-from meshflow_tpu.config import MeshFlowConfig
-from meshflow_tpu.kernels.color import bgr_to_gray
-from meshflow_tpu.kernels.fast import detect_keypoints
-from meshflow_tpu.utils.grid import subframe_offsets
+from meshflow.config import MeshFlowConfig
+from meshflow.kernels.color import bgr_to_gray
+from meshflow.kernels.fast import detect_keypoints
+from meshflow.synth import synthetic_clip
+from meshflow.utils.grid import subframe_offsets
 
 
 def test_bgr_to_gray_exact(rng):
@@ -63,11 +64,10 @@ def test_fast_matches_opencv_structured(rng):
 
 
 def test_fast_matches_opencv_real_frame():
+    """A full 640x360 frame of the seeded synthetic clip (the demo
+    suite's geometry)."""
     config = MeshFlowConfig(max_features_per_subframe=4096)
-    cap = cv2.VideoCapture("/root/reference/videos/video-1/video-1.m4v")
-    ok, frame = cap.read()
-    cap.release()
-    assert ok
+    frame = synthetic_clip(1, 360, 640, seed=3)[0]
     gray = cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)
     ref = _opencv_subframe_keypoints(gray, config)
     ours = _our_keypoints(gray, config)

@@ -2,12 +2,12 @@
 
 The reference tracks on 3-channel BGR subframes
 (/root/reference/meshflowstabilizer.py:618-620); track_planes="gray" is a
-TPU-native transport option that ships and processes one exact-cv2 gray
+transport option that ships and processes one exact-cv2 gray
 plane instead (3x less host->device transfer and pyramid/window work at
 high resolutions).  These tests pin the invariants that make it sound:
 
-* the host conversion is bit-identical to the device's bgr_to_gray (so
-  FAST keypoints are identical in both modes),
+* the host conversion is bit-identical to the device's bgr_to_gray and
+  to cv2's BGR2GRAY (so FAST keypoints are identical in both modes),
 * the gray warp path commutes with gray conversion to within bilinear
   rounding (<=1 LSB), with an identical crop rectangle,
 * the streaming and in-memory pipelines remain bit-identical to each
@@ -20,9 +20,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from meshflow_tpu import MeshFlowConfig
-from meshflow_tpu.kernels.color import bgr_to_gray, gray_of_bgr_color
-from meshflow_tpu.streaming import to_track_planes
+from meshflow import MeshFlowConfig
+from meshflow.kernels.color import bgr_to_gray, gray_of_bgr_color
+from meshflow.streaming import to_track_planes
 
 
 def test_to_track_planes_matches_device_gray(rng):
@@ -34,6 +34,13 @@ def test_to_track_planes_matches_device_gray(rng):
     np.testing.assert_array_equal(out[..., 0], dev)
     # bgr mode is a no-copy passthrough
     assert to_track_planes(frames, MeshFlowConfig()) is frames
+
+
+def test_to_track_planes_matches_cv2_gray(rng):
+    frames = rng.integers(0, 256, (2, 37, 53, 3), dtype=np.uint8)
+    out = to_track_planes(frames, MeshFlowConfig(track_planes="gray"))
+    ref = np.stack([cv2.cvtColor(f, cv2.COLOR_BGR2GRAY) for f in frames])
+    np.testing.assert_array_equal(out[..., 0], ref)
 
 
 def test_border_gray_matches_cv2():
@@ -48,8 +55,8 @@ def test_gray_warp_commutes_with_gray_conversion(rng):
     """render_stabilized(gray planes) == bgr_to_gray(render_stabilized(BGR))
     within bilinear rounding; the crop rectangle (a function of the
     displacement fields alone) is identical."""
-    from meshflow_tpu.render.stabilize import render_stabilized
-    from meshflow_tpu.utils import grid
+    from meshflow.render.stabilize import render_stabilized
+    from meshflow.utils import grid
 
     config = MeshFlowConfig(mesh_row_count=4, mesh_col_count=4)
     f, h, w = 3, 48, 64
@@ -78,7 +85,7 @@ def test_gray_warp_commutes_with_gray_conversion(rng):
 
 
 def test_gray_checkpoint_key_differs(tmp_path):
-    from meshflow_tpu import checkpoint as ckpt
+    from meshflow import checkpoint as ckpt
 
     clip = tmp_path / "c.mp4"
     clip.write_bytes(b"x")
@@ -95,10 +102,10 @@ def test_gray_streamed_matches_in_memory(tmp_path, rng, monkeypatch):
     bit-identical to each other (same invariant the bgr modes carry), and
     the result is sane relative to the bgr run on an easy rigid clip."""
     from tests.test_api_e2e import _write_clip
-    from meshflow_tpu import MeshFlowStabilizer
-    from meshflow_tpu.render import host as host_render
+    from meshflow import MeshFlowStabilizer
+    from meshflow.render import host as host_render
 
-    if not host_render.streaming_available():
+    if not host_render.available():
         pytest.skip("native streaming renderer not built")
     clip = tmp_path / "in.avi"
     _write_clip(clip, rng, num_frames=24, h=120, w=160)

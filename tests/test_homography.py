@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from meshflow_tpu.kernels.homography import (
+from meshflow.kernels.homography import (
     apply_homography,
     dlt_homography,
     estimate_homography,
@@ -186,7 +186,7 @@ def test_ransac_padding_rows_never_inliers(rng):
 
 def test_sample_distinct4_uniform_no_repeats():
     """Draws are distinct within each 4-tuple and uniform over [0, m)."""
-    from meshflow_tpu.kernels.homography import _sample_distinct4
+    from meshflow.kernels.homography import _sample_distinct4
 
     m = 7  # awkward size: the old `raw % m` scheme was visibly biased here
     iters = 20000

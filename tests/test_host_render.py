@@ -5,14 +5,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from meshflow_tpu.config import MeshFlowConfig
-from meshflow_tpu.render import host as host_render
-from meshflow_tpu.render.stabilize import crop_frames, render_stabilized
-from meshflow_tpu.utils.grid import vertex_grid
+from meshflow.config import MeshFlowConfig
+from meshflow.render import host as host_render
+from meshflow.render.stabilize import crop_frames, render_stabilized
+from meshflow.utils.grid import vertex_grid
 
-pytestmark = pytest.mark.skipif(
-    not host_render.available(), reason="native render library not built"
-)
+@pytest.fixture(autouse=True)
+def native_warp():
+    if not host_render.available():
+        pytest.skip("native warp library does not build on this host")
 
 
 def _inputs(rng, num_frames=3, h=120, w=160):
@@ -75,12 +76,11 @@ def test_host_render_identity(rng):
     np.testing.assert_array_equal(out, frames)
 
 
-@pytest.mark.skipif(
-    not host_render._use_cv2_remap(), reason="cv2 remap backend unavailable"
-)
 def test_cv2_backend_matches_cpp(rng, monkeypatch):
     """The cv2 remap backend agrees with the C++ float path within
     OpenCV's fixed-point quantization, and its crop rect is identical."""
+    if not host_render._use_cv2_remap():
+        pytest.skip("cv2 remap backend unavailable")
     frames, unstab, stab, config = _inputs(rng)
 
     monkeypatch.setenv("MESHFLOW_HOST_REMAP", "cpp")

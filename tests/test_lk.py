@@ -9,8 +9,9 @@ import cv2
 import numpy as np
 import jax.numpy as jnp
 
-from meshflow_tpu.kernels.lk import lk_track, prepare_level, scharr_deriv
-from meshflow_tpu.kernels.pyramid import build_pyramid, pyramid_shapes
+from meshflow.kernels.lk import lk_track, prepare_level, scharr_deriv
+from meshflow.kernels.pyramid import build_pyramid, pyramid_shapes
+from meshflow.synth import synthetic_clip
 
 
 def _textured(rng, h, w):
@@ -87,11 +88,9 @@ def test_lk_synthetic_translation(rng):
 
 
 def test_lk_real_frames():
-    cap = cv2.VideoCapture("/root/reference/videos/video-1/video-1.m4v")
-    ok1, f1 = cap.read()
-    ok2, f2 = cap.read()
-    cap.release()
-    assert ok1 and ok2
+    """Consecutive 640x360 frames of the seeded synthetic clip: parallax
+    layers under shake, FAST corners from cv2."""
+    f1, f2 = synthetic_clip(2, 360, 640, seed=4)
     g1 = cv2.cvtColor(f1, cv2.COLOR_BGR2GRAY)
     g2 = cv2.cvtColor(f2, cv2.COLOR_BGR2GRAY)
     det = cv2.FastFeatureDetector_create()

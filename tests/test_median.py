@@ -6,7 +6,7 @@ import cv2
 import numpy as np
 import jax.numpy as jnp
 
-from meshflow_tpu.kernels.median import masked_median, median3x3
+from meshflow.kernels.median import masked_median, median3x3
 
 
 def test_masked_median_matches_statistics(rng):

@@ -12,11 +12,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from meshflow_tpu.config import MeshFlowConfig
-from meshflow_tpu.motion.features import MatchResult
-from meshflow_tpu.motion.pipeline import estimate_motion
-from meshflow_tpu.motion.propagate import ellipse_membership, vertex_velocities
-from meshflow_tpu.utils.grid import vertex_grid
+from meshflow.config import MeshFlowConfig
+from meshflow.motion.features import MatchResult
+from meshflow.motion.pipeline import estimate_motion
+from meshflow.motion.propagate import ellipse_membership, vertex_velocities
+from meshflow.utils.grid import vertex_grid
 
 
 def _reference_ellipse_oracle(feature_pos, config, h, w):
@@ -149,30 +149,3 @@ def test_stage2_parity_with_reference(rng):
     herr = np.abs(homos[:, :2, 2] - ref_homos[:, :2, 2]).max()
     assert herr < 0.2, f"translation err {herr}"
 
-
-def test_pack_tile_planes_u8_bit_identical():
-    """The u8-native packer must match the f32-tiles packer bit for bit
-    (pyramid level 0 is the input; pad/cast commute with the u8 cast)."""
-    import jax.numpy as jnp
-
-    from meshflow_tpu.config import MeshFlowConfig
-    from meshflow_tpu.kernels import lk_pallas
-    from meshflow_tpu.motion.pipeline import (
-        frame_tiles_f32,
-        pack_tile_planes_u8,
-    )
-
-    rng = np.random.default_rng(3)
-    config = MeshFlowConfig()
-    for c in (3, 1):
-        frames = jnp.asarray(
-            rng.integers(0, 256, size=(3, 72, 96, c), dtype=np.uint8)
-        )
-        ref_planes, ref_dims = lk_pallas.pack_tile_planes(
-            frame_tiles_f32(frames, config), 2
-        )
-        planes, dims = pack_tile_planes_u8(frames, config, 2)
-        assert dims == ref_dims
-        for a, b in zip(planes, ref_planes):
-            assert a.dtype == b.dtype and a.shape == b.shape
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

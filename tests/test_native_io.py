@@ -1,26 +1,41 @@
-"""Native libav video IO runtime tests (skipped if the library isn't built)."""
+"""Native libav video IO runtime tests (skipped where libav is missing).
+
+Clips are the seeded synthetic generator's, encoded with cv2 inside the
+test."""
 
 import numpy as np
 import cv2
 import pytest
 
-from meshflow_tpu.io import native as native_io
-from meshflow_tpu.io import video as video_io
-
-pytestmark = pytest.mark.skipif(
-    not native_io.available(), reason="native video IO library not built"
-)
-
-CLIP = "/root/reference/videos/video-1/video-1.m4v"
+from meshflow.io import native as native_io
+from meshflow.io import video as video_io
+from meshflow.synth import synthetic_clip
 
 
-def test_native_decode_matches_cv2():
-    reader = native_io.NativeReader(CLIP)
+@pytest.fixture(autouse=True)
+def native():
+    if not native_io.available():
+        pytest.skip(f"native video IO not available: {native_io.unavailable_reason()}")
+
+
+def _encode(path, frames, fps=30.0):
+    h, w = frames.shape[1:3]
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    assert writer.isOpened()
+    for frame in frames:
+        writer.write(frame)
+    writer.release()
+
+
+def test_native_decode_matches_cv2(tmp_path):
+    clip = tmp_path / "clip.mp4"
+    _encode(clip, synthetic_clip(8, 360, 640, seed=5))
+    reader = native_io.NativeReader(str(clip))
     assert (reader.width, reader.height) == (640, 360)
     assert abs(reader.fps - 30.0) < 0.5
     batch = reader.read(5)
     reader.close()
-    cap = cv2.VideoCapture(CLIP)
+    cap = cv2.VideoCapture(str(clip))
     for i in range(5):
         ok, ref = cap.read()
         assert ok
@@ -45,8 +60,10 @@ def test_native_missing_file():
         native_io.NativeReader("/nonexistent-clip.mp4")
 
 
-def test_read_video_uses_native_and_matches_reference_count():
-    frames, info = video_io.read_video(CLIP)
-    assert frames.shape == (494, 360, 640, 3)
-    assert info.num_frames == 494
+def test_read_video_uses_native_and_matches_reference_count(tmp_path):
+    clip = tmp_path / "clip.mp4"
+    _encode(clip, synthetic_clip(37, 360, 640, seed=6))
+    frames, info = video_io.read_video(str(clip))
+    assert frames.shape == (37, 360, 640, 3)
+    assert info.num_frames == 37
     assert info.fourcc != 0

@@ -4,8 +4,8 @@ import cv2
 import numpy as np
 import pytest
 
-from meshflow_tpu.config import MeshFlowConfig
-from meshflow_tpu.online import OnlineMeshFlowStabilizer
+from meshflow.config import MeshFlowConfig
+from meshflow.online import OnlineMeshFlowStabilizer
 
 
 def _clip(rng, num_frames, h=96, w=128, max_shift=6):
@@ -71,9 +71,9 @@ def test_online_state_bootstrap(rng):
 def test_online_gray_transport(rng):
     """track_planes='gray' ships single-plane frames to the device; the
     stabilized output is still full BGR (host warp from the input frame)."""
-    from meshflow_tpu.render import host as host_render
+    from meshflow.render import host as host_render
 
-    if not host_render.streaming_available():
+    if not host_render.available():
         pytest.skip("native streaming renderer not built")
     config = MeshFlowConfig(
         max_features_per_subframe=32,

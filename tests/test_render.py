@@ -9,14 +9,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from meshflow_tpu.config import MeshFlowConfig
-from meshflow_tpu.render.stabilize import (
+from meshflow.config import MeshFlowConfig
+from meshflow.render.stabilize import (
     backward_map,
     crop_frames,
     crop_resize_frame,
     render_stabilized,
 )
-from meshflow_tpu.utils.grid import vertex_grid
+from meshflow.utils.grid import vertex_grid
 
 
 def _frame(rng, h=120, w=160):
@@ -142,7 +142,7 @@ def test_bilinear_sample_packed_paths_match_generic(rng):
     inside/outside/edge/fractional coords, with and without a border
     color.  The generic path is forced via a uint16 copy of the same
     values (only u8 takes the packed routes)."""
-    from meshflow_tpu.render.stabilize import bilinear_sample
+    from meshflow.render.stabilize import bilinear_sample
 
     h, w = 37, 53
     n = 4000
@@ -168,3 +168,89 @@ def test_bilinear_sample_packed_paths_match_generic(rng):
         )
         assert packed.shape == generic.shape == (n, c)
         assert np.array_equal(packed, generic), (c, border)
+
+
+def _backward_map_f64(stab, unstab, mesh, h, w):
+    """NumPy float64 oracle of render.stabilize.backward_map: per-cell
+    stabilized->unstabilized homographies by an 8x8 DLT solve, the 3-step
+    fixed-point cell search, then the 3x3 candidate pass (member iff the
+    mapped point lies strictly inside the cell's integer bbox grown by
+    1 px; the highest row-major cell wins)."""
+    stab = stab.astype(np.float64)
+    unstab = unstab.astype(np.float64)
+    cells = np.empty((mesh, mesh, 3, 3))
+    for r in range(mesh):
+        for c in range(mesh):
+            src = [stab[r + i, c + j] for i, j in ((0, 0), (0, 1), (1, 0), (1, 1))]
+            dst = [unstab[r + i, c + j] for i, j in ((0, 0), (0, 1), (1, 0), (1, 1))]
+            a, b = [], []
+            for (x, y), (u, v) in zip(src, dst):
+                a.append([x, y, 1, 0, 0, 0, -u * x, -u * y])
+                a.append([0, 0, 0, x, y, 1, -v * x, -v * y])
+                b += [u, v]
+            cells[r, c] = np.append(np.linalg.solve(np.array(a), np.array(b)), 1.0).reshape(3, 3)
+    lines_x = -(-((w - 1) * np.arange(mesh + 1)) // mesh)
+    lines_y = -(-((h - 1) * np.arange(mesh + 1)) // mesh)
+    py, px = np.mgrid[0:h, 0:w].astype(np.float64)
+
+    def apply(row, col):
+        m = cells[row, col]  # (h, w, 3, 3)
+        d = m[..., 2, 0] * px + m[..., 2, 1] * py + m[..., 2, 2]
+        d = np.where(np.abs(d) < 1e-10, 1e-10, d)
+        return (
+            (m[..., 0, 0] * px + m[..., 0, 1] * py + m[..., 0, 2]) / d,
+            (m[..., 1, 0] * px + m[..., 1, 1] * py + m[..., 1, 2]) / d,
+        )
+
+    def cell_of(qx, qy):
+        col = (qx[..., None] >= lines_x[1:-1]).sum(-1)
+        row = (qy[..., None] >= lines_y[1:-1]).sum(-1)
+        return np.clip(row, 0, mesh - 1), np.clip(col, 0, mesh - 1)
+
+    qx, qy = px, py
+    for _ in range(3):
+        qx, qy = apply(*cell_of(qx, qy))
+    row0, col0 = cell_of(qx, qy)
+    best = np.full((h, w), -1)
+    map_x = np.full((h, w), w + 1.0)
+    map_y = np.full((h, w), h + 1.0)
+    for dr in (-1, 0, 1):
+        for dc in (-1, 0, 1):
+            row = np.clip(row0 + dr, 0, mesh - 1)
+            col = np.clip(col0 + dc, 0, mesh - 1)
+            cx, cy = apply(row, col)
+            member = (
+                (cx > lines_x[col] - 1) & (cx < lines_x[col + 1] + 1)
+                & (cy > lines_y[row] - 1) & (cy < lines_y[row + 1] + 1)
+            )
+            key = row * mesh + col
+            take = member & (key > best)
+            best = np.where(take, key, best)
+            map_x = np.where(take, cx, map_x)
+            map_y = np.where(take, cy, map_y)
+    return map_x, map_y, best >= 0
+
+
+@pytest.mark.parametrize(
+    "mesh,h,w,scale",
+    [
+        (16, 48, 64, 1.5),   # default mesh density, mild warp
+        (4, 40, 56, 6.0),    # coarse cells, strong warp (uncovered px)
+        (16, 48, 64, 12.0),  # heavy warp: sentinel + membership edges
+    ],
+)
+def test_backward_map_matches_float64_oracle(mesh, h, w, scale):
+    """The XLA backward map (bf16 one-hot x 3-term split table) against a
+    float64 NumPy implementation of the same algorithm."""
+    config = MeshFlowConfig(mesh_row_count=mesh, mesh_col_count=mesh)
+    rng = np.random.default_rng(mesh * 7 + int(scale))
+    unstab = np.asarray(vertex_grid(config, h, w), np.float32)
+    stab = unstab + rng.normal(0.0, scale, unstab.shape).astype(np.float32)
+
+    ours = backward_map(jnp.asarray(stab), jnp.asarray(unstab), config, h, w)
+    map_x, map_y, covered = _backward_map_f64(stab, unstab, mesh, h, w)
+
+    np.testing.assert_array_equal(np.asarray(ours.covered), covered)
+    assert (~covered).any() or scale < 6.0  # strong warps leave gaps
+    np.testing.assert_allclose(np.asarray(ours.map_x), map_x, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(np.asarray(ours.map_y), map_y, rtol=0, atol=1e-3)

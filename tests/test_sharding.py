@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from meshflow_tpu.config import MeshFlowConfig
-from meshflow_tpu.parallel.pipeline import (
+from meshflow.config import MeshFlowConfig
+from meshflow.parallel.pipeline import (
     frame_sharding,
     make_mesh,
     stabilize_sharded,
@@ -115,8 +115,8 @@ def test_halo_solver_matches_replicated(rng):
 def test_multi_clip_batch_matches_sequential(rng, tmp_path):
     """Batched clips across 2 devices produce the same metrics and outputs
     as solo runs (multi-clip batch parallelism, SURVEY §2.3 axis 6)."""
-    from meshflow_tpu.api import MeshFlowStabilizer
-    from meshflow_tpu.parallel.batch import BatchJob, stabilize_batch
+    from meshflow.api import MeshFlowStabilizer
+    from meshflow.parallel.batch import BatchJob, stabilize_batch
 
     clips = []
     for i in range(2):

@@ -11,8 +11,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from meshflow_tpu.config import MeshFlowConfig
-from meshflow_tpu.parallel.pipeline import (
+from meshflow.config import MeshFlowConfig
+from meshflow.parallel.pipeline import (
     frame_sharding,
     make_mesh,
     stabilize_sharded,

@@ -11,9 +11,9 @@ x <- (b - A_off x) / D, x0 = b, fixed iteration count.
 import numpy as np
 import jax.numpy as jnp
 
-from meshflow_tpu import config as cfg
-from meshflow_tpu.solver.jacobi import jacobi_smooth, on_diagonal
-from meshflow_tpu.solver.weights import adaptive_weights
+from meshflow import config as cfg
+from meshflow.solver.jacobi import jacobi_smooth, on_diagonal
+from meshflow.solver.weights import adaptive_weights
 
 
 def dense_jacobi_oracle(b, lambdas, omega, iterations):

@@ -7,8 +7,9 @@ The reference's parity contract lives at its demo resolution (all clips in
 the mesh stays 16x16.  These tests pin the invariants that make the
 downscaled geometry sound:
 
-* the host (cv2 INTER_AREA) and device (integer box mean) downscales are
-  bit-identical for every factor the auto policy can pick,
+* the host (NumPy) and device (JAX) integer box means are bit-identical
+  to each other and to cv2 INTER_AREA for every factor the auto policy
+  can pick,
 * the homography conjugation H_full = S H_track S^-1 leaves the adaptive
   weights and both metric formulas invariant,
 * the auto policy engages only above the demo-resolution budget,
@@ -19,11 +20,12 @@ downscaled geometry sound:
 
 import cv2
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from meshflow_tpu import MeshFlowConfig
-from meshflow_tpu.motion import trackscale
+from meshflow import MeshFlowConfig
+from meshflow.motion import trackscale
 
 
 def test_box_downscale_dev_matches_host(rng):
@@ -42,6 +44,24 @@ def test_box_downscale_dev_matches_host(rng):
     host = trackscale.box_downscale_host(tie, 2)
     dev = np.asarray(trackscale.box_downscale_dev(jnp.asarray(tie), 2))
     np.testing.assert_array_equal(host, dev)
+
+
+def test_box_downscale_host_matches_cv2(rng):
+    """The NumPy host downscale equals cv2.resize(INTER_AREA) on the
+    aligned crop, for every factor the auto policy picks and the even
+    >= 4 tie rule, on noise and on a tie-heavy two-level image."""
+    noise = rng.integers(0, 256, (2, 97, 131, 3), dtype=np.uint8)
+    ties = (rng.integers(0, 2, (2, 97, 131, 3)) * 3 + 100).astype(np.uint8)
+    for frames in (noise, ties):
+        for d in (2, 3, 4, 5, 6):
+            th, tw = 97 // d, 131 // d
+            ref = np.stack([
+                cv2.resize(f[: th * d, : tw * d], (tw, th), interpolation=cv2.INTER_AREA)
+                for f in frames
+            ])
+            np.testing.assert_array_equal(
+                trackscale.box_downscale_host(frames, d), ref, err_msg=f"d={d}"
+            )
 
 
 def test_auto_policy_resolution():
@@ -65,8 +85,8 @@ def test_conjugation_preserves_weights_and_metrics(rng):
     """Adaptive weights (meshflowstabilizer.py:819-835) and the metric
     formulas (:1203, :1206-1210) are invariant under the track-geometry
     conjugation: lambda(H_track; tw, th) == lambda(H_full; w, h)."""
-    from meshflow_tpu.kernels.eig3 import affine_eigen_ratio
-    from meshflow_tpu.solver.weights import adaptive_weights
+    from meshflow.kernels.eig3 import affine_eigen_ratio
+    from meshflow.solver.weights import adaptive_weights
 
     h, w, d = 1080, 1920, 3
     th, tw = h // d, w // d
@@ -104,7 +124,7 @@ def test_scale_velocities_and_checkpoint_key(tmp_path, rng):
     np.testing.assert_allclose(out[..., 0], v[..., 0] * 3.0, rtol=1e-6)
     np.testing.assert_allclose(out[..., 1], v[..., 1] * 2.0, rtol=1e-6)
 
-    from meshflow_tpu import checkpoint as ckpt
+    from meshflow import checkpoint as ckpt
 
     clip = tmp_path / "c.mp4"
     clip.write_bytes(b"x")
@@ -115,16 +135,32 @@ def test_scale_velocities_and_checkpoint_key(tmp_path, rng):
     assert a != b
 
 
+def test_checkpoint_key_names_lk_precision(tmp_path, monkeypatch):
+    """A motion checkpoint written while the LK selection matmuls ran at
+    another precision (another platform) misses instead of being reused."""
+    from meshflow import checkpoint as ckpt
+    from meshflow.kernels import lk
+
+    clip = tmp_path / "c.npy"
+    clip.write_bytes(b"x")
+    keys = set()
+    for precision in (None, jax.lax.Precision.HIGH, jax.lax.Precision.HIGHEST):
+        monkeypatch.setattr(lk, "_selection_precision", lambda p=precision: p)
+        assert str(precision) in ckpt._tracker_key()
+        keys.add(ckpt.cache_path(str(tmp_path), str(clip), MeshFlowConfig(), 0))
+    assert len(keys) == 3
+
+
 @pytest.mark.slow
 def test_trackscale_streamed_matches_in_memory(tmp_path, rng, monkeypatch):
     """Under track_downscale=2, streaming and in-memory paths stay
     bit-identical to each other, and the result stays close to the
     full-geometry run on an easy rigid clip."""
     from tests.test_api_e2e import _write_clip
-    from meshflow_tpu import MeshFlowStabilizer
-    from meshflow_tpu.render import host as host_render
+    from meshflow import MeshFlowStabilizer
+    from meshflow.render import host as host_render
 
-    if not host_render.streaming_available():
+    if not host_render.available():
         pytest.skip("native streaming renderer not built")
     clip = tmp_path / "in.avi"
     _write_clip(clip, rng, num_frames=24, h=180, w=320, max_shift=10)
